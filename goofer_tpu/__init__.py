@@ -1,4 +1,4 @@
-"""goofer_tpu — a TPU-native singing-voice analysis/resynthesis framework.
+"""goofer_tpu — a JAX singing-voice analysis/resynthesis framework.
 
 Rebuilds the capabilities of MLo7Ghinsan/GOOFER (harmonic-plus-noise
 vocoder + UTAU/OpenUtau resampler CLI + voicing editor) as an idiomatic

@@ -8,9 +8,9 @@ Praat-equivalent pipeline, fully batched over frames:
 2. pre-emphasis from 50 Hz;
 3. Gaussian-windowed frames of 2 * 0.025 s, Burg recursion of order
    2 * max_formants (a lax.fori over the order, vectorized over frames);
-4. polynomial roots via batched Durand-Kerner iteration (TPU has no
-   nonsymmetric eigensolver; DK is branch-free and converges in ~40
-   fixed iterations for order-10 LPC polynomials);
+4. polynomial roots via batched Durand-Kerner iteration (no batched
+   nonsymmetric eigensolver runs on every backend; DK is branch-free and
+   converges in ~40 fixed iterations for order-10 LPC polynomials);
 5. root angles -> formant frequencies, filtered to [50, nyquist-50] and
    sorted ascending; missing formants are 0.0 like the reference's
    None -> 0.0 mapping (ref: GOOFER.py:778-781).
@@ -40,7 +40,7 @@ def _formant_decim(sr: float, max_formant_hz: float) -> int:
     resample (11025 vs 11000 at 44.1k, <0.3% — far inside the formant
     budgets); in exchange the decimation is an exact strided slice and
     the frame stride hop/decim stays integral, so framing rides the
-    slice-based path instead of the TPU-hostile row gather."""
+    slice-based path instead of a per-element row gather."""
     d = 1
     while d * 2 <= 256 and sr / (d * 2) >= 2.0 * max_formant_hz:
         d *= 2
@@ -56,8 +56,8 @@ def _resample_to(y: jnp.ndarray, sr: float, target_sr: float) -> jnp.ndarray:
     kernel = _lowpass_kernel(target_sr / sr)
     pad = (len(kernel) - 1) // 2
     yp = jnp.pad(y, pad, mode="edge")
-    # 127-tap direct conv on a full waveform costs minutes of XLA-TPU
-    # compile time; the pow2-padded FFT path compiles in ~1 s.
+    # a 127-tap direct conv over a full waveform: the pow2-padded FFT
+    # path is far cheaper to compile and run
     filt = fft_conv_valid(yp[None, :], kernel)[0]
     n_out = int(round(y.shape[0] * target_sr / sr))
     pos = jnp.arange(n_out) * (sr / target_sr)

@@ -65,10 +65,9 @@ def _frame_grid(n_samples: int, sr: float, dt: float, wlen: int):
 
 def _frames_strided(y, shift, f_pad: int, wlen: int, hop: int):
     """frames[k] = ypad[shift + k*hop : +wlen] built from hop-block
-    reshape + static slices — the general row gather this replaces ran
-    ~100x slower on TPU (the per-element gather dominated the whole
-    analysis graph; tools/probe_extract_stages.py).  ``shift`` is a
-    traced scalar (one dynamic_slice); everything after is static."""
+    reshape + static slices instead of a general per-element row
+    gather.  ``shift`` is a traced scalar (one dynamic_slice);
+    everything after is static."""
     cols = -(-wlen // hop)
     wpad = cols * hop
     sz = f_pad * hop + wpad
@@ -145,9 +144,8 @@ def _candidates(y, sr: float, wlen: int, nfft: int, cfg: PitchConfig,
     # Restrict normalization + peak/refinement/top-k math to the
     # candidate lag band [lag_min, lag_max] (f0 range -> ~13% of the
     # nfft lags): the elementwise chain over all nfft lags was the
-    # analysis graph's hottest HBM traffic (VERDICT r3 item 6; a
-    # 16-file batch touched ~90 MB per intermediate,
-    # tools/probe_extract_stages.py).
+    # analysis graph's heaviest memory traffic (a 16-file batch touched
+    # ~90 MB per intermediate).
     band = slice(lag_min - 1, lag_max + 2)
     seg = (ac[:, band] / r0) / jnp.asarray(wac[band])[None, :]  # (F, L+2)
     rm1 = seg[:, :-2]
@@ -183,10 +181,9 @@ def _viterbi(freqs, strengths, unvoiced_strength, cfg: PitchConfig,
     solved by PARALLEL PREFIX instead of a sequential scan.
 
     The classic Viterbi lax.scan costs one sequential device step per
-    frame — ~0.5 ms/step on TPU for these tiny (K+1)-state updates, so
-    the two scans (forward + backtrace) dominated the whole analysis
-    graph (173 ms of a 280 ms voicebank batch; tools/
-    probe_extract_stages.py).  Max-plus matrix products are associative,
+    frame for these tiny (K+1)-state updates, so the two scans (forward
+    + backtrace) would dominate the whole analysis graph.  Max-plus
+    matrix products are associative,
     so the forward deltas are an inclusive jax.lax.associative_scan of
     the per-step (K+1)x(K+1) score matrices (log2(F) parallel levels),
     the backward "best suffix" betas are the same scan reversed, and the

@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 from goofer_tpu import config
+from goofer_tpu.utils.compile_cache import setup_compile_cache
 
 logging.basicConfig(format="%(message)s", level=logging.INFO)
 log = logging.getLogger("goofer_tpu")
@@ -27,30 +28,14 @@ HELP_STRING = (
 )
 
 
-def _setup_compile_cache() -> None:
-    """Persistent XLA compilation cache — the AOT equivalent of the
-    reference's Numba warmup idiom (ref: GOOFER.py:1224): after the first
-    run, note-render graphs load from disk instead of recompiling."""
-    import os
-
-    try:
-        import jax
-
-        cache_dir = os.environ.get(
-            "GOOFER_TPU_CACHE",
-            os.path.expanduser("~/.cache/goofer_tpu/xla"))
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
-
-
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     log.info("goofer_tpu SillySampler %s (surface-compatible with %s)",
              config.VERSION, config.REFERENCE_CLI_VERSION)
-    _setup_compile_cache()
+    # persistent XLA cache — the equivalent of the reference's Numba
+    # warmup idiom (ref: GOOFER.py:1224): after the first run, note-render
+    # graphs load from disk instead of recompiling
+    setup_compile_cache()
 
     if not argv:
         try:

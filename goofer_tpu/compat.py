@@ -3,7 +3,7 @@
 ``import goofer_tpu.compat as gf`` exposes the same function names and
 signatures as the reference engine module, so code written against
 ``import GOOFER as gf`` ports by changing one import.  Hot paths dispatch
-to the jitted TPU ops; small host utilities are NumPy.
+to the jitted device ops; small host utilities are NumPy.
 
 Each symbol cites its reference definition.  Stochastic functions accept
 an optional ``seed`` like the reference; parity is spectral, not

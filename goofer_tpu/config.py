@@ -2,10 +2,10 @@
 
 Dtype policy mirrors the reference engine's split between compact storage and
 full-precision math (ref: GOOFER.py:7-8): features persisted to `.goofy` files
-are float16, all on-device compute is float32.  On TPU the compute dtype stays
-float32 (the pipeline is VPU/FFT-bound, not MXU-bound, and LSD parity with the
-CPU reference is part of the contract); bfloat16 is available as an opt-in for
-the envelope matmuls.
+are float16, all on-device compute is float32: the pipeline is elementwise-
+and FFT-bound, not matmul-bound, and LSD parity with the CPU reference is part
+of the contract.  f32 products ask for HIGHEST precision, so a GPU does not
+run them in TF32; bfloat16 is available as an opt-in for the envelope matmul.
 """
 from __future__ import annotations
 
@@ -17,8 +17,8 @@ import numpy as np
 STORAGE_DTYPE = np.float16
 # Compute dtype for all device math (ref: GOOFER.py:8).
 COMPUTE_DTYPE = np.float32
-# Opt-in dtype for the mel-knot envelope-decode matmul — the one MXU op
-# in the pipeline.  bfloat16 halves its HBM traffic at <1e-2 relative
+# Opt-in dtype for the mel-knot envelope-decode matmul — the one real
+# matmul in the pipeline.  bfloat16 halves its memory traffic at <1e-2 relative
 # envelope error (the knots are stored fp16 anyway); set
 # GOOFER_TPU_ENVELOPE_MATMUL_DTYPE=bfloat16 to enable.
 ENVELOPE_MATMUL_DTYPE = os.environ.get(
@@ -53,7 +53,7 @@ PULSE_T0_MIN = 3
 PULSE_T0_MAX = 8192
 
 # Maximum number of simultaneously-overlapping pulse generations the
-# TPU pulse-train kernel sums per output sample.  The reference scatters
+# pulse-train generator sums per output sample.  The reference scatters
 # pulses of arbitrary overlap; overlap beyond this bound only occurs for
 # pathological f0 trajectories (e.g. extreme growl noise) and contributes
 # only low-amplitude pulse tails.

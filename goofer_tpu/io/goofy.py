@@ -53,10 +53,10 @@ def pad_trim_to_len(x, length: int) -> np.ndarray:
 
 def _savez_fast(fobj, **arrays) -> None:
     """npz writer at deflate level 1: np.savez_compressed hardwires
-    zlib level 6, which cost ~14 ms per .goofy on this image's single
-    host core — half the warm folder-extraction wall clock at
-    voicebank scale.  Level 1 compresses these f16 payloads to within
-    ~2% of the level-6 size at half the time; the output is a standard
+    zlib level 6, which cost half the warm folder-extraction wall clock
+    at voicebank scale on a single host core.  Level 1 compresses these
+    f16 payloads to within ~2% of the level-6 size at half the time;
+    the output is a standard
     npz (np.load reads it unchanged, upstream included)."""
     import io
     import zipfile

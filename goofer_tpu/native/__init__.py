@@ -1,7 +1,7 @@
 """Native host runtime components (C++ via ctypes).
 
 The reference's host-native substrate is libsndfile (audio I/O) and
-Praat's C++ engine (analysis).  Analysis moved onto the TPU; the audio
+Praat's C++ engine (analysis).  Analysis moved onto the device; the audio
 codec stays host-bound, so it is native here too: ``wavcodec.cpp`` is a
 dependency-free RIFF codec compiled on first use with the system g++ and
 loaded through ctypes (no pybind11 in this image).

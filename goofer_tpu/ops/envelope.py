@@ -2,8 +2,8 @@
 
 The mel-knot codec compresses a (n_bins, T) spectral envelope to K
 log-amplitude knots on a mel grid with an adaptive K search
-(ref: GOOFER.py:74-168); decode is a dense (n_bins, K) @ (K, T) matmul —
-an MXU op — followed by exp.
+(ref: GOOFER.py:74-168); decode is a dense (n_bins, K) @ (K, T) matmul
+followed by exp.
 
 The transform zoo mirrors the reference's envelope-domain flag effects:
 global/per-formant frequency warps, width expansion, tilt, smoothing/
@@ -82,14 +82,19 @@ def decode_env_from_knots(knot_vals_log: jnp.ndarray, sr: int, n_fft: int,
     """exp(W @ knots), truncated to n_bins rows (ref: GOOFER.py:149-168).
 
     The matmul runs in config.ENVELOPE_MATMUL_DTYPE (f32 default; bf16
-    opt-in halves its HBM traffic — the knots are fp16-stored anyway)
+    opt-in halves its memory traffic — the knots are fp16-stored anyway)
     and accumulates in f32."""
     from goofer_tpu.config import ENVELOPE_MATMUL_DTYPE
 
     k = knot_vals_log.shape[0]
     mm_dtype = jnp.dtype(ENVELOPE_MATMUL_DTYPE)
     w = jnp.asarray(_decode_matrix(sr, n_fft, k)).astype(mm_dtype)
+    # f32 pins HIGHEST: a TF32 product's error is exponentiated into the
+    # envelope; the bf16 opt-in keeps its own precision
+    precision = (jax.lax.Precision.HIGHEST if mm_dtype == jnp.float32
+                 else None)
     log_env = jnp.dot(w, knot_vals_log.astype(mm_dtype),
+                      precision=precision,
                       preferred_element_type=jnp.float32)
     env = jnp.exp(log_env.astype(jnp.float32))
     if env.shape[0] != n_bins:
@@ -119,6 +124,7 @@ def _knot_errors(env: jnp.ndarray, sr: int, n_fft: int,
         knots = log_check[bin_idx, :]
         w = jnp.asarray(_decode_matrix(sr, n_fft, k))
         recon = jnp.exp(jnp.dot(w, knots,
+                                precision=jax.lax.Precision.HIGHEST,
                                 preferred_element_type=jnp.float32))
         rel = jnp.max(jnp.abs(recon - env_check) / (env_check + 1e-8))
         errs.append(rel)
@@ -342,8 +348,8 @@ def banded_gather_lerp_columns(env: jnp.ndarray, pos: jnp.ndarray,
                                k_lo: int, k_hi: int) -> jnp.ndarray:
     """gather_lerp_columns for positions whose offset from the identity
     (pos[j] - j) is STATICALLY bounded to [k_lo, k_hi]: the per-element
-    gather (~24 ns/element on the v5e, docs/PERFORMANCE.md "gather
-    trap") becomes k_hi-k_lo+1 shifted dense selects the VPU streams.
+    gather becomes k_hi-k_lo+1 shifted dense selects.  Whether that still
+    beats a plain gather on the GPU is not measured (ROADMAP.md).
 
     Exactly equivalent to gather_lerp_columns when the bound holds;
     offsets outside the band would read the wrong rows — callers derive
@@ -376,9 +382,8 @@ def fry_env_shift(env: jnp.ndarray, fry_weight_frames: jnp.ndarray,
 
     Banded formulation: s >= shift (STATIC), so the source offset
     d = bin/s - bin is bounded by n_bins*(1/shift - 1) (~45 rows at
-    0.92) — the gather becomes K shifted dense selects, which the VPU
-    streams ~40x faster than a (bin, frame)-indexed take_along_axis
-    (136 ms -> ~3 ms at the 80-note heavy-phrase shape)."""
+    0.92) — the gather becomes K shifted dense selects instead of a
+    (bin, frame)-indexed take_along_axis."""
     n_bins = env.shape[0]
     s = 1.0 - fry_weight_frames * (1.0 - shift)  # (T,) in [shift, 1]
     bins = jnp.arange(n_bins, dtype=jnp.float32)[:, None]

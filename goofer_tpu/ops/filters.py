@@ -5,7 +5,7 @@ Matches the reference's hand-rolled ``gaussian_filter1d`` semantics
 normalized Gaussian taps, reflect padding, 'valid' convolution.
 
 Sigma is always a host-side (static) float here, so the kernel is a
-compile-time constant.  Small kernels lower to a direct conv on the VPU;
+compile-time constant.  Small kernels lower to a direct conv;
 large kernels (long smoothing windows over per-sample tracks) use FFT
 convolution, which XLA executes as a few rfft/irfft ops instead of a
 multi-thousand-tap sliding window.
@@ -18,13 +18,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# XLA-TPU compile-time cost model (measured on the live v5e toolchain,
-# tools/probe_conv.py): direct conv compile grows superlinearly in
-# taps * length (33 taps on a 26k row = 49 s, 65 taps = 101 s), while an
-# FFT conv compiles in ~1-3 s PROVIDED the FFT size is a power of two
-# (nfft = 6600, with a factor 11, took 31 s to compile; 8192 is fast).
-# So: direct only when taps * length is small, FFT with pow2 padding
-# otherwise.
+# Direct conv only when taps * length is small, FFT with pow2 padding
+# otherwise: on the accelerator these bounds were tuned for, direct-conv
+# compile time grew superlinearly in taps * length.  Not yet measured on
+# XLA:GPU (ROADMAP.md).
 _DIRECT_CONV_MAX_WORK = 120_000   # taps * length
 _DIRECT_CONV_MAX_TAPS = 33
 
@@ -47,10 +44,9 @@ def fft_conv_valid(x2d: jnp.ndarray, kernel, ksize: int | None = None
                    ) -> jnp.ndarray:
     """'valid' FFT convolution of each (B, L) row with a symmetric kernel.
 
-    The FFT size is padded to a power of two: XLA-TPU FFT compile time is
-    highly sensitive to the size's factorization (measured 31 s for a
-    6600-point rfft vs ~1 s for 8192).  Circular wraparound only corrupts
-    full-conv indices < ksize-1, which the valid slice skips.
+    The FFT size is padded to a power of two, whose FFT plans compile and
+    run fastest.  Circular wraparound only corrupts full-conv indices
+    < ksize-1, which the valid slice skips.
     """
     kernel = jnp.asarray(kernel, dtype=x2d.dtype)
     if ksize is None:
@@ -79,6 +75,7 @@ def _conv_valid_lastaxis(x2d: jnp.ndarray, kernel: np.ndarray) -> jnp.ndarray:
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.HIGHEST,
     )
     return out[:, 0, :]
 
@@ -141,7 +138,8 @@ def gaussian_blur1d_traced(x: jnp.ndarray, sigma, max_sigma: float,
         rhs = k.astype(padded.dtype)[None, None, :]
         out = jax.lax.conv_general_dilated(
             lhs, rhs, window_strides=(1,), padding="VALID",
-            dimension_numbers=("NCH", "OIH", "NCH"))[:, 0, :]
+            dimension_numbers=("NCH", "OIH", "NCH"),
+            precision=jax.lax.Precision.HIGHEST)[:, 0, :]
     return jnp.moveaxis(out.reshape(shape), -1, axis)
 
 

@@ -26,8 +26,7 @@ def smoothed_unit_noise(key, length: int, sigma: float) -> jnp.ndarray:
     while the full-rate PRNG + O(n log n) blur shrink by ds.  Parity
     with the reference is spectral by design (module docstring), and
     the upsample is a dense reshape/broadcast — positions form a
-    uniform ramp — not a per-element gather (the TPU "gather trap",
-    docs/PERFORMANCE.md)."""
+    uniform ramp — not a per-element gather."""
     ds = 1
     while sigma / (2 * ds) >= 8.0 and ds < 64:
         ds *= 2

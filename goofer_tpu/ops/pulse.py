@@ -1,9 +1,9 @@
-"""LF glottal pulse train, TPU-native.
+"""LF glottal pulse train, vectorized.
 
 The reference generates pulses with a sequential per-sample phase accumulator
 (``pulse_train_numba``, ref: GOOFER.py:473-554) and a per-ratio event tracker
-for subharmonics (ref: GOOFER.py:672-746).  Sequential loops are poison on
-TPU, so this module reformulates both exactly:
+for subharmonics (ref: GOOFER.py:672-746).  A sequential per-sample loop
+leaves an accelerator idle, so this module reformulates both exactly:
 
 * phase accumulation -> ``cumsum(f0/sr)``; a pulse onset is a sample where
   ``floor(phase)`` increases (the reference fires when the running phase
@@ -23,8 +23,6 @@ TPU, so this module reformulates both exactly:
   maximum is attained at one of the two grid points straddling u = Ra.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -137,8 +135,8 @@ def _accumulate_pulses(n_samples: int, onset: jnp.ndarray,
     native cumulative HLO) plus ONE gather of the period track at the
     onset positions; period/eps-guard/normalization are then recomputed
     elementwise.  This replaces the naive four-table-gathers-per-level
-    lowering (~5x slower on TPU) without the compile-time blowup of
-    explicit associative-scan forward fills.
+    lowering without the compile-time blowup of explicit associative-scan
+    forward fills.
     """
     n = n_samples
     sample_idx = jnp.arange(n, dtype=jnp.float32)
@@ -168,25 +166,24 @@ def _accumulate_pulses(n_samples: int, onset: jnp.ndarray,
 
 
 def _compact_onset_tables(n: int, onset, f0, valid_f0, fallback_f0, sr,
-                          Ra, Rg, Rk, guard, min_spacing: int,
-                          pos_fill: float | None = None):
+                          Ra, Rg, Rk, guard, min_spacing: int):
     """Compact per-generation onset tables, scatter- and gather-light.
 
     ``gen = cumsum(onset)`` is nondecreasing, so the sample index of the
     (r+1)-th onset is ``searchsorted(gen, r+1)`` — a batched binary
     search instead of a scatter (the scatter formulation routed every
-    non-onset sample into one dump row; XLA-TPU lowers that collision
-    pattern ~10x slower).
+    non-onset sample into one dump row, a pattern that serializes on
+    colliding writes).
 
     The period at each onset is the reference's ``last_valid_f0`` carry
     (ref: GOOFER.py:487-500) evaluated LAZILY: the forward-fill index is
     a native cummax, and f0 is gathered only at the M table rows — a
     full-length forward-filled track would cost an n-element gather
-    (~10 ms at 50 x 24.7k) just to be read back at M << n positions.
+    just to be read back at M << n positions.
 
     Returns (row_of_latest_onset_per_sample, pos_tab, t0_tab, t_tab,
     norm_tab) with M = n // min_spacing + 2; rows past the last true
-    onset hold (pos_fill, 1, 1, 1).
+    onset hold (4 * n, 1, 1, 1): a position no sample reaches.
     """
     m = n // min_spacing + 2
     gen = jnp.cumsum(onset.astype(jnp.int32))
@@ -206,9 +203,7 @@ def _compact_onset_tables(n: int, onset, f0, valid_f0, fallback_f0, sr,
     t0_g = jnp.clip(jnp.round(sr * t_g),
                     config.PULSE_T0_MIN, config.PULSE_T0_MAX)
 
-    if pos_fill is None:
-        pos_fill = float(4 * n)
-    pos_tab = jnp.where(valid, pos.astype(jnp.float32), pos_fill)
+    pos_tab = jnp.where(valid, pos.astype(jnp.float32), float(4 * n))
     t0_tab = jnp.where(valid, t0_g, 1.0)
     t_tab = jnp.where(valid, t_g, 1.0)
     norm_tab = jnp.where(valid, _grid_peak(t0_g, t_g, Ra, Rg, Rk, guard),
@@ -222,16 +217,18 @@ def _accumulate_pulses_blocked(n_samples: int, onset: jnp.ndarray,
                                Ra: float, Rg: float, Rk: float, guard: bool,
                                max_overlap: int, min_spacing: int = 16,
                                blk: int = 128) -> jnp.ndarray:
-    """Block-local pulse accumulation — the TPU fast path.
+    """Block-local pulse accumulation — the production path.
 
     Per 128-sample block, gather a slab of consecutive onset rows covering
     [gen(block_start) - K + 1, gen(block_end)] from compact tables, then
     evaluate every (row, sample) pair densely and reduce.  Gathers drop
-    from N*K elements (per-sample lookups, ~100 M elem/s on TPU) to
-    n_blocks*slab (~500x fewer); the extra masked evaluations are cheap
-    VPU work.  ``min_spacing`` (assumed minimum onset distance in samples)
-    sizes the slab; onsets denser than that can overflow it and drop
-    pulses, mirroring the K-overlap approximation on the other end.
+    from N*K elements (per-sample lookups) to n_blocks*slab (~500x
+    fewer); the extra masked evaluations are cheap elementwise work.
+    ``blk`` = 128 was tuned for another accelerator and is not yet
+    measured on the GPU (ROADMAP.md).  ``min_spacing`` (assumed minimum
+    onset distance in samples) sizes the slab; onsets denser than that
+    can overflow it and drop pulses, mirroring the K-overlap
+    approximation on the other end.
     """
     n = n_samples
     row, pos_tab, t0_tab, t_tab, norm_tab = _compact_onset_tables(
@@ -261,76 +258,13 @@ def _accumulate_pulses_blocked(n_samples: int, onset: jnp.ndarray,
     return contrib.sum(axis=1).reshape(-1)[:n]
 
 
-@functools.lru_cache(maxsize=None)
-def _make_pallas_accumulate(slab: int, Ra: float, Rg: float,
-                            Rk: float, guard: bool, interpret: bool):
-    """custom_vmap-wrapped single-example entry over the batched Pallas
-    kernel, so ``jax.vmap`` of the render graph maps onto the kernel's
-    own batch grid axis instead of Pallas' generic batching."""
-    from goofer_tpu.ops.pallas.pulse_kernel import pulse_accumulate_pallas
-
-    @jax.custom_batching.custom_vmap
-    def accumulate(pos_s, t0_s, t_s, norm_s):
-        out = pulse_accumulate_pallas(
-            pos_s[None], t0_s[None], t_s[None], norm_s[None],
-            slab, Ra, Rg, Rk, guard, interpret)
-        return out[0]
-
-    @accumulate.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [a if b else jnp.broadcast_to(a, (axis_size,) + a.shape)
-                for a, b in zip(args, in_batched)]
-        out = pulse_accumulate_pallas(
-            *args, slab, Ra, Rg, Rk, guard, interpret)
-        return out, True
-
-    return accumulate
-
-
-def _accumulate_pulses_pallas(n_samples: int, onset: jnp.ndarray,
-                              f0: jnp.ndarray, valid_f0: jnp.ndarray,
-                              fallback_f0: float, sr: float,
-                              Ra: float, Rg: float, Rk: float, guard: bool,
-                              max_overlap: int, min_spacing: int = 16,
-                              interpret: bool = False) -> jnp.ndarray:
-    """Pallas block-local variant of _accumulate_pulses: compact onset
-    tables, per-block slab gather (XLA), dense evaluation in the kernel
-    (see ops/pallas/pulse_kernel.py).
-
-    ``min_spacing`` is the assumed minimum onset spacing in samples (16 =
-    f0 up to ~2.75 kHz at 44.1 kHz); onsets denser than that within one
-    block can overflow the slab and drop pulses, mirroring the K-overlap
-    approximation of the jnp path on the other end.
-    """
-    from goofer_tpu.ops.pallas.pulse_kernel import BLK, OCTET
-
-    n = n_samples
-    m = n // min_spacing + 2
-    row, pos_tab, t0_tab, t_tab, norm_tab = _compact_onset_tables(
-        n, onset, f0, valid_f0, fallback_f0, sr, Ra, Rg, Rk, guard,
-        min_spacing, pos_fill=float(2 * n + BLK))
-
-    n_blocks = -(-n // BLK)
-    n_blocks_pad = -(-n_blocks // OCTET) * OCTET
-    starts = jnp.minimum(jnp.arange(n_blocks_pad) * BLK, n - 1)
-    block_gen = row[starts]
-    slab = min(m, max_overlap + BLK // min_spacing + 2)
-    base = jnp.clip(block_gen - (max_overlap - 1), 0, m - slab)
-    idx = base[:, None] + jnp.arange(slab, dtype=jnp.int32)[None, :]
-    fn = _make_pallas_accumulate(slab, Ra, Rg, Rk, guard, interpret)
-    out = fn(jnp.take(pos_tab, idx), jnp.take(t0_tab, idx),
-             jnp.take(t_tab, idx), jnp.take(norm_tab, idx))
-    return out[:n]
-
-
 def pulse_train(f0: jnp.ndarray, sr: float,
                 Ra: float = config.PULSE_RA,
                 Rg: float = config.PULSE_RG,
                 Rk: float = config.PULSE_RK,
                 fallback_f0: float = config.PULSE_FALLBACK_F0,
                 max_overlap: int = config.PULSE_MAX_OVERLAP,
-                min_spacing: int = config.PULSE_MIN_SPACING,
-                use_pallas: bool | None = None) -> jnp.ndarray:
+                min_spacing: int = config.PULSE_MIN_SPACING) -> jnp.ndarray:
     """ARX-LF pulse train from a per-sample f0 track.
 
     Vectorized equivalent of ``pulse_train_numba`` (ref: GOOFER.py:473-554):
@@ -340,19 +274,13 @@ def pulse_train(f0: jnp.ndarray, sr: float,
     [3, 8192] samples.
 
     The block-local formulation (see _accumulate_pulses_blocked) is the
-    default; ``use_pallas=True`` routes through the Pallas kernel, and
-    very short inputs fall back to the per-sample cummax path.
+    default; very short inputs fall back to the per-sample cummax path.
     """
     f0 = jnp.asarray(f0, dtype=jnp.float32)
     n = f0.shape[0]
     valid = f0 > 1e-6
     phase = _phase_cumsum(f0 / sr)
     onset = _onsets_from_phase(phase)
-    if use_pallas and n >= 512:
-        return _accumulate_pulses_pallas(n, onset, f0, valid, fallback_f0,
-                                         sr, Ra, Rg, Rk, guard=True,
-                                         max_overlap=max_overlap,
-                                         min_spacing=min_spacing)
     if n >= 256:
         return _accumulate_pulses_blocked(n, onset, f0, valid, fallback_f0,
                                           sr, Ra, Rg, Rk, guard=True,
@@ -369,8 +297,7 @@ def subharm_pulse_train(f0: jnp.ndarray, sr: float, mask: jnp.ndarray,
                         semitones, weight: float,
                         fallback_f0: float = config.PULSE_FALLBACK_F0,
                         max_overlap: int = 8,
-                        min_spacing: int = 8,
-                        use_pallas: bool | None = None) -> jnp.ndarray:
+                        min_spacing: int = 8) -> jnp.ndarray:
     """Subharmonic pulse layer (ref: GOOFER.py:672-746).
 
     Per semitone ratio, a phase tracker accumulates ``sub_f0/sr`` on voiced
@@ -398,12 +325,7 @@ def subharm_pulse_train(f0: jnp.ndarray, sr: float, mask: jnp.ndarray,
         accumulating = active & (sub_f0 >= 1e-2)
         phase = _phase_cumsum(jnp.where(accumulating, sub_f0 / sr, 0.0))
         onset = _onsets_from_phase(phase) & accumulating
-        if use_pallas and n >= 512:
-            total = total + _accumulate_pulses_pallas(
-                n, onset, sub_f0, accumulating, fallback_f0 * ratio, sr,
-                Ra=0.02, Rg=1.7, Rk=1.0, guard=False,
-                max_overlap=max_overlap, min_spacing=min_spacing)
-        elif n >= 256:
+        if n >= 256:
             total = total + _accumulate_pulses_blocked(
                 n, onset, sub_f0, accumulating, fallback_f0 * ratio, sr,
                 Ra=0.02, Rg=1.7, Rk=1.0, guard=False,

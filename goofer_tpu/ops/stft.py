@@ -9,7 +9,7 @@ Matches the reference's framing contract (ref: GOOFER.py:355-413):
   accumulated squared window (skipping bins where the accumulation is ~0),
   center trim, then pad/cut to the requested length.
 
-TPU-native formulation: when hop divides n_fft (all call sites use
+Gather-free formulation: when hop divides n_fft (all call sites use
 n_fft/hop = 4) framing and OLA avoid gathers/scatters entirely — the signal
 is reshaped into hop-sized chunks and frames become R = n_fft//hop shifted
 views; OLA is R dense shifted adds.  The win^2 normalizer is data-independent

@@ -108,6 +108,7 @@ def _decode_and_render_sharded(mesh, st: SynthStatic, n_bins: int):
         def f(w_l, knots_l, f0_l, mask_l, tracks_l, knobs, keys_l):
             log_env = jnp.einsum("nk,bkt->bnt", w_l,
                                  knots_l.astype(jnp.float32),
+                                 precision=jax.lax.Precision.HIGHEST,
                                  preferred_element_type=jnp.float32)
             log_env = jax.lax.psum(log_env, "tp")
             env = jnp.exp(log_env)[:, :n_bins, :]

@@ -2,11 +2,11 @@
 
 The reference's only parallelism is a CPU thread pool over files
 (ref: SillySampler.py:235-238); each note render is embarrassingly
-parallel.  The TPU equivalent is data parallelism over a note batch,
-sharded over ICI via jax.sharding; the mel-knot envelope decode — the one
-real matmul in the pipeline — additionally shards its contraction axis
-over a tensor axis so the multi-chip path exercises genuine collectives
-(psum over the knot axis).
+parallel.  The device equivalent is data parallelism over a note batch,
+sharded over a device mesh via jax.sharding; the mel-knot envelope
+decode — the one real matmul in the pipeline — additionally shards its
+contraction axis over a tensor axis so the multi-device path exercises
+genuine collectives (psum over the knot axis).
 """
 from __future__ import annotations
 

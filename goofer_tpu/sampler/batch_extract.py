@@ -1,7 +1,7 @@
 """Folder-mode batch feature extraction.
 
 The reference parallelizes over files with a CPU thread pool
-(ref: SillySampler.py:211-240).  The TPU formulation goes further:
+(ref: SillySampler.py:211-240).  This formulation goes further:
 decode I/O runs on a host thread pool while the device computes, and the
 analysis itself is BATCHED — files bucket by padded length and each
 bucket runs as vmapped dispatches of one compiled analysis graph

@@ -7,7 +7,7 @@ NumPy index/weight arrays describing every frame/sample of the output as a
 one- or two-source blend of the cut features; the device then materializes
 them with O(1) fused gathers.  Plans are pure functions of the note
 arguments (no audio data), so planning costs microseconds and the heavy
-math stays on the TPU.
+math stays on the device.
 
 A frame plan is (pos0, pos1, w): out[.., t] = lerp-gather(src, pos0[t]) *
 (1 - w[t]) + lerp-gather(src, pos1[t]) * w[t], positions fractional.

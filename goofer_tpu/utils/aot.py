@@ -4,14 +4,13 @@ The reference pays ~seconds of Numba JIT once per process
 (ref: GOOFER.py:1224, test.py:6).  Here the persistent XLA compilation
 cache already removes recompiles, but every fresh process still pays
 Python tracing + MLIR lowering before it can even LOOK UP the cache —
-~45-60 s for the two 11-flag phrase graphs on this one-core host
-(docs/PERFORMANCE.md "warm-process start").  The jaxpr there is ~72k
+tens of seconds for the 11-flag phrase graph, whose jaxpr is ~72k
 primitives, dominated by the blocked-IIR cascades.
 
 Fix: ``jax.export``.  The first process to build a graph serializes its
-lowered StableHLO (~0.4 MB, ~2 s — vs 60+ MB for the compiled
-executable) into this store; every later process deserializes the
-module (<0.1 s, C++ parse) and jits ``exported.call`` directly, which
+lowered StableHLO (far smaller than the compiled executable) into this
+store; every later process deserializes the module (a C++ parse) and
+jits ``exported.call`` directly, which
 wraps the pre-lowered module instead of re-tracing Python.  Compiled
 executables of the wrapped module land in the same persistent XLA cache,
 so a fresh process goes disk -> StableHLO -> cache-hit executable with
@@ -24,7 +23,8 @@ serialized modules only guarantee backward compatibility.
 
 Store is best-effort everywhere: any failure falls back to the plain
 jitted function.  ``GOOFER_TPU_AOT=0`` disables it; ``GOOFER_TPU_AOT=
-<dir>`` relocates it (default ``~/.cache/goofer_tpu/aot``).
+<dir>`` relocates it (default ``<repo>/.cache/aot``, beside the XLA
+cache of utils/compile_cache.py).
 """
 from __future__ import annotations
 
@@ -43,7 +43,11 @@ def store_dir() -> str | None:
     v = os.environ.get("GOOFER_TPU_AOT", "")
     if v == "0":
         return None
-    return v or os.path.expanduser("~/.cache/goofer_tpu/aot")
+    if v:
+        return v
+    from goofer_tpu.utils.compile_cache import CACHE_ROOT
+
+    return str(CACHE_ROOT / "aot")
 
 
 _src_fp: str | None = None
@@ -149,8 +153,8 @@ def wrap(family: str, config_repr: str, jitted_fn):
                     resolved[sig] = fn
         return fn(*args)
 
-    call.lower = jitted_fn.lower   # diagnostics (tools/probe_*) lower
-    return call                    # the underlying module directly
+    call.lower = jitted_fn.lower   # diagnostics lower the underlying
+    return call                    # module directly
 
 
 def _resolve(family: str, config_repr: str, jitted_fn, args, d: str):

@@ -1,5 +1,4 @@
 #!/bin/sh
 # OpenUtau/UTAU resampler launcher: forwards all arguments to the
 # goofer_tpu CLI (point OpenUtau's resampler path at this script).
-DIR="$(cd "$(dirname "$0")/.." && pwd)"
 exec python3 -m goofer_tpu.cli "$@"

@@ -2,7 +2,7 @@
 
 The mounted reference cannot be imported in this image (numba / parselmouth /
 soundfile are absent), so these little sequential implementations serve as
-the ground truth for the vectorized TPU kernels.  Each function cites the
+the ground truth for the vectorized device kernels.  Each function cites the
 reference behavior it models (see /root/reference file:line in docstrings);
 they are deliberately written loop-style so the equivalence being tested is
 between "obvious sequential semantics" and the scan/gather formulations.
@@ -577,7 +577,7 @@ def o_stretch_prefix_1d(x, pre_len, factor):
 # ======================================================================
 # Full resampler-chain oracle (ref: SillySampler.py:286-411 decode +
 # 449-1185 resample).  Sequential NumPy, composed from the per-op
-# oracles above; the TPU pipeline's render_note must match it to float
+# oracles above; the device pipeline's render_note must match it to float
 # accuracy on deterministic paths (tests/test_resample_oracle.py).
 # ======================================================================
 

@@ -573,7 +573,7 @@ def test_viterbi_parallel_matches_sequential():
 
 def test_strided_frames_bitexact_vs_gather():
     """The hop-block strided framing (+ clamped-row fixups) that
-    replaced the TPU-hostile row gather must reproduce the gathered
+    replaced the per-element row gather must reproduce the gathered
     frames bit-for-bit — including clamped head/tail rows, tiny signals
     where every row is clamped, and bucket padding past nf."""
     from goofer_tpu.analysis.pitch import (

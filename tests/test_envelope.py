@@ -180,7 +180,7 @@ def test_knot_decode_bf16_optin(monkeypatch):
 def test_banded_gather_equals_gather():
     """banded_gather_lerp_columns must be float-equivalent to the
     per-element gather whenever the offset bound holds (the banded form
-    replaces the ~24 ns/element TPU gather, docs/PERFORMANCE.md)."""
+    replaces a per-element gather)."""
     import numpy as np
 
     from goofer_tpu.ops.envelope import (

@@ -11,7 +11,7 @@ signatures; each pins a compiled executable.  Two bounds:
   reference to its executables).
 
 The logic is tested directly (fake signatures, recorded hooks) — an
-RSS-plateau soak at real scale lives in tools/soak_server.py (TPU).
+RSS-plateau soak at real scale lives in tools/soak_server.py (on the card).
 """
 import numpy as np
 import pytest

@@ -157,6 +157,59 @@ def test_burst_fallback_is_logged(monkeypatch, tmp_path, caplog):
     assert len(rendered) == 4        # fallback still served every note
 
 
+def test_listen_backlog_holds_a_burst():
+    """16 connects while the accept loop is busy all complete at once:
+    none waits on a resent SYN, which would split a burst."""
+    import socket
+
+    httpd = ThreadedHTTPServer(("127.0.0.1", 0), RequestHandler)
+    socks = []
+    try:
+        for _ in range(16):
+            c = socket.socket()
+            socks.append(c)
+            c.settimeout(0.5)
+            c.connect(httpd.server_address)
+        httpd.socket.settimeout(0.5)
+        for _ in socks:
+            httpd.socket.accept()[0].close()
+    finally:
+        for c in socks:
+            c.close()
+        httpd.server_close()
+
+
+@pytest.mark.parametrize("max_wait_s, want", [(5.0, [6]), (0.2, "split")])
+def test_burst_window_follows_arrivals(monkeypatch, max_wait_s, want):
+    """POSTs 0.1 s apart, spread over more than one 0.3 s window, merge
+    into one batch; ``MAX_WAIT_S`` still bounds how long it collects."""
+    from goofer_tpu.sampler.server import BurstBatcher
+
+    batches = []
+
+    def fake_render(self, batch):
+        batches.append(len(batch))
+        for req in batch:
+            req.done.set()
+
+    monkeypatch.setattr(BurstBatcher, "_render", fake_render)
+    b = BurstBatcher()
+    b.WINDOW_S, b.MAX_WAIT_S = 0.3, max_wait_s
+    clients = []
+    for j in range(6):
+        c = threading.Thread(target=b.submit, args=([j],))
+        c.start()
+        clients.append(c)
+        threading.Event().wait(0.1)
+    for c in clients:
+        c.join(timeout=10)
+    assert sum(batches) == 6
+    if want == "split":
+        assert len(batches) > 1, batches
+    else:
+        assert batches == want
+
+
 def test_stage_timer_report():
     t = StageTimer(enabled=True)
     with t.stage("a"):

@@ -2,7 +2,7 @@
 
 The round-3 universal bridge only covered short 44.1 kHz notes: a 4 s
 sustain or any 48 kHz voicebank missed every warmed graph and paid the
-full specialized compile (167 s for the 11-flag stack on TPU).  The
+full specialized compile (minutes for the 11-flag stack).  The
 ladder (resampler.WARM_NOTE_SECONDS x WARM_SAMPLE_RATES, with warm
 arrays inflated along the axes real notes outgrow the synthetic warm
 note: pitch-tick tables, velocity pre-warp plans) must dominate every

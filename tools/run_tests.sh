@@ -24,13 +24,14 @@ cd "$(dirname "$0")/.."
 # grouped to balance wall-clock (heavy compile families spread out);
 # every tests/test_*.py must appear in exactly one chunk
 CHUNK1="tests/test_analysis.py tests/test_aot.py tests/test_batch_extract.py \
-tests/test_bucket.py tests/test_compat.py tests/test_engine.py \
-tests/test_envelope.py tests/test_flag_fuzz.py"
-CHUNK2="tests/test_golden.py tests/test_graph_budget.py \
+tests/test_bucket.py tests/test_chip_smoke.py tests/test_compat.py \
+tests/test_compile_cache.py tests/test_engine.py tests/test_envelope.py \
+tests/test_flag_fuzz.py"
+CHUNK2="tests/test_golden.py tests/test_gpu.py tests/test_graph_budget.py \
 tests/test_gui_editor.py tests/test_io_editor.py tests/test_mp3.py \
-tests/test_native.py tests/test_ops.py tests/test_pallas_pulse.py \
-tests/test_resampler.py"
+tests/test_native.py tests/test_ops.py tests/test_resampler.py"
 CHUNK3="tests/test_parallel.py tests/test_phrase.py tests/test_plan.py \
+tests/test_precision.py \
 tests/test_ref_upstream.py tests/test_server.py tests/test_sndcodec.py"
 CHUNK4="tests/test_resample_oracle.py tests/test_universal.py \
 tests/test_universal_cover.py"

@@ -2,9 +2,9 @@
 ladder (VERDICT r3 item 2: the first-run story).
 
 The reference pays ~seconds of Numba JIT on first run
-(ref: GOOFER.py:1224, test.py:6); cold XLA compiles here are minutes
-(BENCH_r03: ~8.5 min of warmups).  The persistent compilation cache
-(cli._setup_compile_cache) already makes the SECOND run on a machine
+(ref: GOOFER.py:1224, test.py:6); cold XLA compiles of the full graph
+ladder take far longer.  The persistent compilation cache
+(utils/compile_cache.py) already makes the SECOND run on a machine
 fast — this tool is the install-time step that makes the FIRST server
 start / bench fast too: run it once after installing (or bake its
 output into the shipped image) and every later process deserializes the
@@ -18,14 +18,14 @@ What gets seeded (superset of the server's background warmup):
 
 Because this runs with the AOT store enabled (utils/aot.py, default on),
 it also writes each graph's exported StableHLO blob, so later processes
-skip Python tracing as well as compilation — the full warm-process story
-(docs/PERFORMANCE.md "warm-process start").
+skip Python tracing as well as compilation — the full warm-process
+story.
 
 Cache relocatability: entries are keyed on (serialized HLO, XLA backend
 version, compile flags, device kind) — they hit on any machine running
 the same jaxlib + runtime against the same device kind, so a cache
-seeded on one v5e image is valid on another.  Point GOOFER_TPU_CACHE at
-a shared/shipped directory to relocate it.
+seeded on one machine is valid on another with the same card.  Set
+JAX_COMPILATION_CACHE_DIR to a shared/shipped directory to relocate it.
 
 Usage:  python tools/seed_cache.py [--bench] [--sr 44100 --sr 48000]
 """
@@ -63,9 +63,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
 
-    from goofer_tpu.cli import _setup_compile_cache
+    from goofer_tpu.utils.compile_cache import setup_compile_cache
 
-    _setup_compile_cache()
+    setup_compile_cache()
     import jax
 
     cache_dir = jax.config.jax_compilation_cache_dir

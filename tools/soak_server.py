@@ -62,9 +62,9 @@ def main() -> int:
     args = ap.parse_args()
 
     t0 = time.perf_counter()
-    from goofer_tpu.cli import _setup_compile_cache
+    from goofer_tpu.utils.compile_cache import setup_compile_cache
 
-    _setup_compile_cache()
+    setup_compile_cache()
 
     import goofer_tpu.sampler.phrase as phrase
     import goofer_tpu.sampler.resampler as rsm
